@@ -38,7 +38,8 @@ FAMILIES = {
 
 
 def load_movielens_sample(sample_size: int = 10_000):
-    data = sbr.datasets.download_movielens_100k()
+    data, source = sbr.datasets.movielens_100k()
+    print(source)
     idx = np.random.default_rng(0).choice(len(data), size=sample_size, replace=False)
     return sbr.data.Interactions(
         data.num_users,
@@ -83,6 +84,9 @@ def bench(family: str) -> None:
 
 
 if __name__ == "__main__":
+    from sbr_rs_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     targets = sys.argv[1:] or ["lstm", "ewma"]
     for family in targets:
         bench(family)

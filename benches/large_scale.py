@@ -1,20 +1,19 @@
 """Large-scale benchmark configs (BASELINE.json configs[2..4]).
 
-The reference has nothing at this scale — these measure the TPU-native
-capabilities layered on top of its semantics:
+The reference has nothing at this scale — these measure the capabilities
+layered on top of its semantics:
 
 * ``ml1m``   — ML-1M-shaped synthetic data (6040 users x 3706 items x ~1M
   interactions), coupled-gate LSTM dim=128, Hinge, Adam, packed
   variable-length sequences (BASELINE config[2]).
-* ``items2m`` / ``items10m`` — synthetic long-tail catalogs with dim=256
-  LSTM, WARP, sparse (touched-rows-only) optimizer updates; ``items10m``
-  needs a sharded table (multi-chip) or >24 GB HBM — ``items2m`` is the
-  single-v5e-chip smoke of the same path (BASELINE config[3]).
-* ``mesh``   — the sharded-table + DP path on an 8-device virtual CPU mesh
-  (row-sharded embeddings over ``model``, batches over ``data``); validates
-  the config[4] program rather than its wall-clock.
+* ``items2m`` / ``items10m`` — synthetic long-tail catalogs with an LSTM
+  of dim 256 (``items10m``: 127), WARP, sparse (touched-rows-only)
+  optimizer updates (BASELINE config[3]).
 
-Usage: python benches/large_scale.py [ml1m items2m mesh ...]
+The sharded-table path over several cards is exercised by
+``python chip_smoke.py --cards 4``.
+
+Usage: python benches/large_scale.py [ml1m items2m items10m ...]
 """
 
 from __future__ import annotations
@@ -84,7 +83,7 @@ def bench_items(num_items: int, name: str, dim: int = 256, dtype: str = "float32
 
     # Full-catalog MRR at this scale: 512 users x num_items streamed-chunk
     # scoring. The chunk counter slices the table in place (no O(catalog)
-    # copy per call — VERDICT r2 item 3).
+    # copy per call).
     import sbr_rs_tpu.evaluation as evaluation
 
     test = sbr.datasets.synthetic_interactions(512, num_items, 20, rng=1).to_compressed()
@@ -93,9 +92,7 @@ def bench_items(num_items: int, name: str, dim: int = 256, dtype: str = "float32
     mrr = evaluation.mrr_score(model, test)
     eval_wall = time.perf_counter() - t0
 
-    # Wide-batch eval: the fused counter streams the catalog once per
-    # 4096 users (round 5 — the kernel is pipeline-bound below ~8 user
-    # tiles), so per-user cost drops ~3x at wide batches.
+    # Wide-batch eval: 4096 users, streamed 512 at a time.
     test_wide = sbr.datasets.synthetic_interactions(
         4096, num_items, 20, rng=2
     ).to_compressed()
@@ -117,72 +114,24 @@ def bench_items(num_items: int, name: str, dim: int = 256, dtype: str = "float32
     }
 
 
-def bench_mesh():
-    # The 8-device CPU env must be set BEFORE JAX initializes its backend —
-    # impossible when other benches ran first in this process — so the mesh
-    # bench re-executes itself in a clean subprocess.
-    import subprocess
-
-    if os.environ.get("SBR_MESH_BENCH_INNER") != "1":
-        env = dict(os.environ)
-        env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-        env["JAX_PLATFORMS"] = "cpu"
-        env["SBR_MESH_BENCH_INNER"] = "1"
-        out = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "mesh"],
-            env=env, capture_output=True, text=True, timeout=1200,
-        )
-        for line in out.stdout.splitlines():
-            if line.startswith("{"):
-                return json.loads(line)
-        raise RuntimeError(f"mesh bench subprocess failed: {out.stderr[-500:]}")
-
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    import sbr_rs_tpu as sbr
-    from sbr_rs_tpu.models import Loss, Optimizer, lstm
-    from sbr_rs_tpu.parallel import make_mesh
-
-    data = sbr.datasets.synthetic_interactions(2000, 100_000, 40, rng=0)
-    mat = data.to_compressed()
-    mesh = make_mesh(data=4, model=2)
-    model = (
-        lstm.Hyperparameters(data.num_items, 64)
-        .embedding_dim(64)
-        .learning_rate(0.1)
-        .loss(Loss.WARP)
-        .optimizer(Optimizer.ADAGRAD)
-        .num_epochs(1)
-        .batch_size(128)
-        .mesh(mesh)
-        .from_seed(0)
-        .build()
-    )
-    eps, wall = _examples_per_sec(model, mat)
-    return {"config": "mesh4x2_sharded_table_cpu_virtual", "examples_per_sec": round(eps), "wall_s": round(wall, 2)}
-
-
 BENCHES = {
     "ml1m": bench_ml1m,
     "items2m": lambda: bench_items(2_000_000, "synthetic_2m_items_lstm256_warp"),
-    # TPU lane padding: the fused [N, D+1] table rounds its row to a
-    # multiple of 128 lanes, so D ≡ 0 (mod 128) wastes a whole extra lane
-    # group (129 -> 256 = 2x HBM). At 10M rows that overflows one chip;
-    # D=127 packs the fused row into exactly 128 lanes (~10.4 GB with
-    # Adagrad state) and exercises the identical sparse path. D=256 belongs
-    # on a sharded table (>= 4 chips).
+    # D=127 makes the fused [N, D+1] row 128 floats (~10.2 GB with Adagrad
+    # state at 10M rows).
     "items10m": lambda: bench_items(10_000_000, "synthetic_10m_items_lstm127_warp", dim=127),
     "items10m_256": lambda: bench_items(10_000_000, "synthetic_10m_items_lstm256_warp", dim=256),
-    # bf16 table+state halves HBM: 20M x 128-lane rows ≈ 10.2 GB on one chip.
+    # bf16 table+state halves the memory: 20M x 128-float rows ≈ 10.2 GB.
     "items20m_bf16": lambda: bench_items(
         20_000_000, "synthetic_20m_items_lstm127_warp_bf16", dim=127, dtype="bfloat16"
     ),
-    "mesh": bench_mesh,
 }
 
 
 if __name__ == "__main__":
-    targets = sys.argv[1:] or ["ml1m", "items2m", "mesh"]
+    from sbr_rs_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    targets = sys.argv[1:] or ["ml1m", "items2m"]
     for t in targets:
         print(json.dumps(BENCHES[t]()), flush=True)

@@ -1,6 +1,6 @@
 """Random hyperparameter search for the LSTM model on Movielens 100K.
 
-TPU-native counterpart of the reference's hyperopt driver
+Counterpart of the reference's hyperopt example
 (``examples/lstm_hyperopt.rs:82-130``): each trial draws random
 hyperparameters (``Hyperparameters.random``, reference
 ``src/models/lstm.rs:141-172``), fits, scores train/test MRR, and appends
@@ -15,12 +15,13 @@ Usage::
 ``Hyperparameters.random`` draws the same common ranges; attention adds
 depth/heads).
 
+Runs on the ML-100K CSV when one is supplied (``$SBR_TPU_ML100K`` or the
+cache file) and otherwise on seeded data of ML-100K's shape.
+
 Search-space note: unlike the reference, ``random()`` does NOT sample
-``parallelism`` — the knob is a documented no-op here (Hogwild is
-meaningless on TPU), so sampling it would only add a noise column. The
-committed ``lstm_results.json`` (1000 trials) predates this change: its
-``parallelism`` field varies but had no effect on any trial; every other
-field is a live knob. ``num_threads`` collapses to the constant 1 on a
+``parallelism`` — the knob is a documented no-op here (Hogwild has no
+analogue in synchronous SPMD training), so sampling it would only add a
+noise column. ``num_threads`` collapses to the constant 1 on a
 single-device host (it is the realized data-parallel mesh degree).
 """
 
@@ -56,7 +57,11 @@ def main() -> None:
     if args.out is None:
         args.out = f"{args.model}_results.json"
 
-    data = sbr.datasets.download_movielens_100k()
+    data, source = sbr.datasets.movielens_100k()
+    print(source)
+    from sbr_rs_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     rng = np.random.default_rng(args.seed)
     train, test = sbr.data.user_based_split(data, rng, 0.2)
     train_mat = train.to_compressed()

@@ -1,6 +1,6 @@
 // sbr-rs-tpu native data-layer backend.
 //
-// TPU-native counterpart of the reference's Rust data layer
+// Native counterpart of the reference's Rust data layer
 // (reference src/data.rs, src/datasets.rs): the device computes, the host
 // feeds it — this library makes the host side native. It implements the
 // hot host-path operations behind a plain C ABI consumed via ctypes

@@ -1,4 +1,4 @@
-"""sbr-rs-tpu: a TPU-native sequential recommendation framework.
+"""sbr-rs-tpu: a sequential recommendation framework in JAX.
 
 Brand-new JAX/XLA/pjit/Pallas implementation with the capabilities of
 `maciejkula/sbr-rs` (reference layout documented in SURVEY.md): implicit

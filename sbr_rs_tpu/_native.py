@@ -1,7 +1,7 @@
 """ctypes bindings for the native (C++) data-layer backend.
 
 The reference's data layer is native Rust (``src/data.rs``); this module
-provides the equivalent native host path for the TPU framework: CSV
+provides the equivalent native host path for this framework: CSV
 interaction parsing, stable CSR ordering, and padded-window extraction are
 implemented in ``native/sbr_native.cpp`` and called through a C ABI.
 

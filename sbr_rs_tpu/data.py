@@ -1,6 +1,6 @@
 """Host-side data containers and splits.
 
-TPU-native re-design of the reference's data layer (``src/data.rs``). The
+A re-design of the reference's data layer (``src/data.rs``). The
 reference stores interactions as a ``Vec<Interaction>`` of structs and walks
 them one element at a time; here everything is columnar ``numpy`` from the
 start so that window extraction produces padded ``[N, T]`` device-ready
@@ -580,7 +580,7 @@ class TripletInteractions:
 class PaddedWindows:
     """Padded ``[N, T]`` next-item-prediction windows.
 
-    The TPU-native replacement for the reference's per-timestep index feeds:
+    The batched replacement for the reference's per-timestep index feeds:
     a window of item ids ``[i_0 .. i_{L-1}]`` yields inputs ``i_0..i_{L-2}``
     and targets ``i_1..i_{L-1}`` — ``L-1`` supervised timesteps, exactly the
     reference's per-sequence loss span (``src/models/sequence_model.rs:111-158``).
@@ -719,7 +719,7 @@ class StreamWindows:
     position ``t < T`` is supervised iff ``mask[n, t] == 1``, in which case
     input = ``stream[n, t]`` and target = ``stream[n, t + 1]`` (the
     reference's next-item pairs, ``src/models/sequence_model.rs:111-158``).
-    This is the row-traffic-optimal layout on TPU: the training step gathers
+    This is the row-traffic-optimal layout: the training step gathers
     ``B * (T + 1)`` table rows for inputs AND targets combined (a separate
     inputs/targets pair layout gathers ``2 * B * T`` and scatters 50% more
     row gradients — the measured hot cost of the step).
@@ -764,7 +764,7 @@ def pack_streams(padded: PaddedWindows, max_sequence_length: int) -> StreamWindo
     decreasing).
 
     The reference pads nothing (it feeds one sequence at a time); padded
-    batches waste MXU work on masked timesteps (ML-100K at T=128 is ~35%
+    batches waste device work on masked timesteps (ML-100K at T=128 is ~35%
     padding). Packing places several windows end-to-end in one stream row —
     a window with ``s`` supervised steps occupies ``s + 1`` slots of the
     ``T + 1`` capacity; ``starts`` marks window starts where the towers

@@ -6,9 +6,9 @@ load, implicit feedback), caches it under ``~/.sbr-rs`` with a
 download-to-temp-then-atomic-rename pattern (``src/datasets.rs:36-55``).
 
 This module keeps the same cache + atomic-rename behavior (under
-``~/.sbr-rs-tpu``), adds local-path fallbacks for air-gapped environments,
-and provides synthetic large-catalog generators for the sharded-table
-benchmark configs.
+``~/.sbr-rs-tpu``), and provides seeded synthetic generators: one of
+ML-100K's shape for machines without the CSV (:func:`movielens_100k`),
+and large-catalog ones for the sharded-table configs.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from __future__ import annotations
 import os
 import tempfile
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -26,11 +26,11 @@ from .errors import DatasetError
 ML_100K_URL = "https://github.com/maciejkula/sbr-rs/raw/master/data.csv"
 _CACHE_DIR_NAME = ".sbr-rs-tpu"
 
-# Candidate pre-existing local copies of the ML-100K csv, consulted before
-# attempting a network download (this environment has zero egress).
-_LOCAL_FALLBACKS = (
-    "/root/reference/data.csv",
-)
+# ML-100K's shape: 943 users x 1,682 items; 106 events per user gives
+# 99,958 events against the real file's 100,000.
+ML_100K_USERS = 943
+ML_100K_ITEMS = 1682
+_ML_100K_EVENTS_PER_USER = 106
 
 
 def _data_dir() -> Path:
@@ -81,37 +81,12 @@ def download_movielens_100k(path: Optional[str] = None) -> Interactions:
     1. explicit ``path`` argument,
     2. ``$SBR_TPU_ML100K`` environment variable,
     3. the cache file ``~/.sbr-rs-tpu/movielens_100K.csv``,
-    4. known local copies (copied into the cache),
-    5. network download from the upstream repository.
+    4. network download from the upstream repository.
     """
-    if path is not None:
-        return _load_interactions_csv(Path(path))
-    env_path = os.environ.get("SBR_TPU_ML100K")
-    if env_path:
-        return _load_interactions_csv(Path(env_path))
-
+    local = _local_movielens_100k(path)
+    if local is not None:
+        return _load_interactions_csv(local)
     cached = _data_dir() / "movielens_100K.csv"
-    if cached.exists():
-        return _load_interactions_csv(cached)
-
-    for candidate in _LOCAL_FALLBACKS:
-        p = Path(candidate)
-        if p.exists():
-            # Populate the cache (temp + atomic rename, same as a download)
-            # so later calls take the cache path directly.
-            import shutil
-
-            fd, tmp = tempfile.mkstemp(dir=str(cached.parent))
-            os.close(fd)
-            try:
-                shutil.copyfile(p, tmp)
-                os.replace(tmp, cached)
-            except BaseException:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-                raise
-            return _load_interactions_csv(cached)
-
     try:
         _download(ML_100K_URL, cached)
     except Exception as exc:  # noqa: BLE001 — surface as a typed error
@@ -119,6 +94,43 @@ def download_movielens_100k(path: Optional[str] = None) -> Interactions:
             f"Could not obtain Movielens 100K: no local copy and download failed ({exc})."
         ) from exc
     return _load_interactions_csv(cached)
+
+
+def _local_movielens_100k(path: Optional[str] = None) -> Optional[Path]:
+    """The ML-100K CSV given by ``path``, ``$SBR_TPU_ML100K`` or the cache
+    file, in that order; None when none is supplied."""
+    if path is not None:
+        return Path(path)
+    env_path = os.environ.get("SBR_TPU_ML100K")
+    if env_path:
+        return Path(env_path)
+    cached = _data_dir() / "movielens_100K.csv"
+    return cached if cached.exists() else None
+
+
+def movielens_100k_shaped(seed: int = 0) -> Interactions:
+    """Seeded synthetic data of ML-100K's shape (943 users x 1,682 items,
+    99,958 events, long-tailed item popularity)."""
+    return synthetic_interactions(
+        ML_100K_USERS, ML_100K_ITEMS, _ML_100K_EVENTS_PER_USER, rng=seed
+    )
+
+
+def movielens_100k(
+    path: Optional[str] = None, seed: int = 0
+) -> Tuple[Interactions, str]:
+    """ML-100K for the entry points, without any download: the CSV when
+    one is supplied (``path``, ``$SBR_TPU_ML100K`` or the cache file),
+    otherwise :func:`movielens_100k_shaped`. Returns the data and a line
+    saying which of the two it is."""
+    local = _local_movielens_100k(path)
+    if local is not None:
+        return _load_interactions_csv(local), f"data: ML-100K CSV {local}"
+    data = movielens_100k_shaped(seed)
+    return data, (
+        f"data: synthetic ML-100K-shaped (seed {seed}): {data.num_users} users"
+        f" x {data.num_items} items, {len(data)} events"
+    )
 
 
 def load_goodbooks(path: str, max_interactions: int = 1_000_000) -> Interactions:

@@ -64,11 +64,12 @@ class Parallelism(enum.Enum):
     """Type of parallelism used to train the model (reference ``src/models/mod.rs:34-41``).
 
     The reference distinguishes lock-free Hogwild (``Asynchronous``) from
-    synchronized shared-memory threads (``Synchronous``). On TPU both map to
+    synchronized shared-memory threads (``Synchronous``). Here both map to
     synchronous data-parallel SPMD over the device mesh — Hogwild's racy
-    shared-memory writes have no TPU analogue (and the reference itself
-    accepts degraded MRR under parallelism, ``src/models/lstm.rs:490-495``).
-    The enum is kept for API parity; it does not change TPU execution.
+    shared-memory writes have no analogue on a device mesh (and the
+    reference itself accepts degraded MRR under parallelism,
+    ``src/models/lstm.rs:490-495``). The enum is kept for API parity; it
+    does not change execution.
     """
 
     ASYNCHRONOUS = "asynchronous"

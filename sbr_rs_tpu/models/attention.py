@@ -1,10 +1,11 @@
 """Causal self-attention (transformer) implicit-feedback sequence model.
 
 No counterpart in the reference (``src/models/`` has LSTM and EWMA only) —
-a TPU-first EXTENSION of the same ``SequenceModelParameters`` contract
+an EXTENSION of the same ``SequenceModelParameters`` contract
 (``src/models/sequence_model.rs:14-25``): the tower is a SASRec-style causal
-transformer encoder whose every op is a large batched matmul, the shape the
-MXU executes at peak, where the LSTM's ``lax.scan`` serializes over T. It
+transformer encoder whose every op is a large batched matrix product, the
+shape accelerators run fastest, where the LSTM's ``lax.scan`` serializes
+over T. It
 plugs into the identical training engine, losses, optimizers, evaluation,
 serving and checkpoint machinery as the reference-parity models.
 """

@@ -1,6 +1,6 @@
 """The batched sequence-model training engine.
 
-TPU-native replacement for the reference's ``fit_sequence_model``
+Batched replacement for the reference's ``fit_sequence_model``
 (``src/models/sequence_model.rs:70-178``). The reference runs per-sequence
 SGD — one graph execution and one optimizer step per subsequence, with WARP
 negatives drawn by a serial rejection loop calling a SIMD dot per draw. Here
@@ -66,14 +66,9 @@ class EngineConfig:
     # the variance of the final iterate (SURVEY.md §7 hard part 2).
     lr_schedule: str = "constant"
     # Update strategy for the item table/biases. "sparse" = sort+segment-sum
-    # the touched rows, O(batch) HBM traffic — required for huge catalogs.
+    # the touched rows, O(batch) memory traffic — required for huge catalogs.
     # "dense" = scatter-add cotangent + full-table update with touched-row
     # semantics — faster when the table is small (no sort on the hot path).
-    #
-    # (A one-hot-MXU gather/scatter kernel was tried and DELETED: a one-hot
-    # matmul costs N/128 MXU-cycles per gathered row — ~15 ns at N=1683 —
-    # versus ~1.5 ns/row for XLA's native gather; see ARCHITECTURE.md
-    # "Row-traffic roofline".)
     sparse_updates: bool = True
 
 
@@ -85,21 +80,14 @@ def init_embedding_params(
     (reference ``src/models/lstm.rs:22-25``) plus the bias as the LAST
     column, zero-initialized (``src/models/lstm.rs:181``).
 
-    Fusing bias into the table is the TPU-native layout: the hot path
-    gathers/scatters each item's embedding+bias as ONE row, and no per-step
-    concatenation of a catalog-sized buffer ever happens (at 10M+ items
-    that concat would cost more than the rest of the step combined).
-
-    Lane-padding caveat: XLA rounds the row to a multiple of 128 lanes, so
-    the bias column is free unless ``dim`` is itself a multiple of 128 —
-    then the fused row spills into a new lane group (e.g. 129 -> 256, 2x
-    HBM). For memory-bound catalogs pick ``dim`` with ``(dim+1) % 128 != 1``
-    (127/255 pack exactly).
+    Fusing bias into the table makes each item ONE row for every
+    gather/scatter on the hot path, and no per-step concatenation of a
+    catalog-sized buffer ever happens (at 10M+ items that concat would
+    cost more than the rest of the step combined).
     """
     dtype = jnp.dtype(dtype)
     # Generate in the storage dtype and append the zero bias column via pad
-    # (a [N, 1] zeros operand would round up to a full 128-lane group — at
-    # 20M rows that is ~10 GB of pure padding).
+    # (no [N, 1] zeros operand is materialized).
     # init_scale is a tuning lever (base.Hyperparameters.embedding_init_
     # scale); at the default 1.0 the constant below is exactly 1/dim, so
     # existing tuned trajectories are reproduced bit-for-bit.
@@ -166,8 +154,7 @@ def make_train_step(
     def train_step(params, opt_state, key, batch, lr=None, l2=None):
         # lr/l2 may be passed as TRACED scalars so one compiled fit program
         # serves every (lr, l2) trial of a hyperopt sweep — LSTM+WARP
-        # whole-fit compiles take minutes on TPU and would otherwise rerun
-        # per trial. Omitted, the config's values are baked as constants.
+        # whole-fit compiles are slow and would otherwise rerun per trial. Omitted, the config's values are baked as constants.
         if lr is None:
             lr = config.learning_rate
         if l2 is None:
@@ -190,9 +177,8 @@ def make_train_step(
         def gather(idx):
             # Gathered rows are promoted to f32: all score/gradient math is
             # full precision regardless of the table's storage dtype.
-            # Gather with FLAT indices, reshape the result once: 3D-indexed
-            # gathers measured 12% slower end-to-end (XLA picks worse
-            # layouts for the multi-dim gather output).
+            # Gather with FLAT indices, reshape the result once: XLA picks
+            # worse layouts for a multi-dim gather output.
             rows = jnp.take(table, idx.reshape(-1), axis=0)
             return rows.astype(jnp.float32).reshape(idx.shape + (c_param,))
 
@@ -229,7 +215,7 @@ def make_train_step(
             the WARP selection pass and the loss (the reference also
             reuses its forward values for sampling,
             src/models/sequence_model.rs:125-135; a separate
-            stop_gradient'd selection forward measured ~8% of the step).
+            stop_gradient'd selection forward would run the tower twice).
             Gradients attach to arguments, not provenance: adding the zero
             array re-exposes the stop_gradient'd gather as a leaf whose
             cotangent is exactly the selected rows' gradient, while XLA
@@ -256,16 +242,13 @@ def make_train_step(
                 # current values: everything below until the fresh gather
                 # is under stop_gradient.
                 haug0 = jax.lax.stop_gradient(haug)
-                # The candidate-score reduce is bandwidth-bound at ~50
-                # us/step (B=256) in ANY formulation: a fused Pallas reduce
-                # ran the dot itself 2x faster but re-materialized the
-                # [B,T,K,C] operand at its interface for the same total —
-                # measured, then deleted.
+                # The candidate-score reduce is bandwidth-bound in any
+                # formulation: a fused kernel would re-materialize the
+                # [B,T,K,C] operand at its interface.
                 cand_score = jnp.einsum("bte,btke->btk", haug0, cand_rows)
                 # Arithmetic one-hot selection: take_along_axis lowers to a
-                # per-element gather that costs ~8 us per 1k elements on TPU
-                # (profiled: 64 us to pick 8192 ints at B=256); a K-wide
-                # multiply-sum is a handful of fused VPU ops.
+                # per-element gather; a K-wide multiply-sum is a handful of
+                # fused elementwise ops.
                 sel_onehot = warp_select_onehot(
                     jax.lax.stop_gradient(pos_score), cand_score
                 )
@@ -273,9 +256,9 @@ def make_train_step(
                     candidates * sel_onehot.astype(jnp.int32), axis=-1
                 )
                 # Values of the selected rows via a fresh BT-row gather
-                # (~1.5 ns/row; selecting out of cand_rows by value is
-                # take_along_axis again, ~6 ns/row), re-exposed as a
-                # differentiable leaf by the zero-add.
+                # (selecting out of cand_rows by value is a per-element
+                # take_along_axis), re-exposed as a differentiable leaf by
+                # the zero-add.
                 neg_rows = jax.lax.stop_gradient(gather(negatives)) + neg_in
             else:
                 negatives = None

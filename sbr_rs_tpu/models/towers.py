@@ -1,12 +1,14 @@
 """Sequence towers: the recurrent encoders mapping input-item embeddings to
 per-timestep user states.
 
-TPU-native replacements for the reference's per-timestep unrolled graphs:
+Batched replacements for the reference's per-timestep unrolled graphs:
 
 * LSTM (``src/models/lstm.rs:293-298`` building wyrm's ``nn::lstm`` cells,
   Normal and Coupled variants ``src/models/lstm.rs:28-35``) — here a
   ``lax.scan`` over a fused-gate cell. The input projection for *all*
-  timesteps is hoisted out of the scan into one large MXU matmul.
+  timesteps is hoisted out of the scan into one large matrix product
+  (:mod:`sbr_rs_tpu.ops.pallas_lstm` runs the recurrence itself as one
+  GPU kernel at small widths).
 * EWMA (``src/models/ewma.rs:302-313``): ``u_1 = i_1``,
   ``u_t = sigmoid(alpha) * u_{t-1} + (1 - sigmoid(alpha)) * i_t`` with a
   learnable per-dimension ``alpha`` initialized to zeros
@@ -44,7 +46,7 @@ def init_lstm(key: jax.Array, dim: int, coupled: bool) -> Dict[str, jnp.ndarray]
     forget gate is tied to ``1 - i``, reference ``src/models/lstm.rs:28-35``).
     Each gate's ``[dim, dim]`` block is Glorot-initialized with per-gate
     fan (wyrm's ``nn::lstm`` allocates each gate matrix separately), then
-    laid out fused as ``[dim, gates*dim]`` for one MXU matmul.
+    laid out fused as ``[dim, gates*dim]`` for one matrix product.
     """
     gates = 3 if coupled else 4
     k_x, k_h = jax.random.split(key)
@@ -73,7 +75,7 @@ def lstm_apply(
     """
     b_, t_, d = x.shape
     # Hoist the input projection out of the scan: one [B*T, D] @ [D, G*D]
-    # MXU matmul instead of T small ones.
+    # matrix product instead of T small ones.
     xz = (x.reshape(b_ * t_, d) @ params["w_x"]).reshape(b_, t_, -1) + params["b"]
     xz = xz.swapaxes(0, 1)  # [T, B, G*D]
     w_h = params["w_h"]
@@ -121,7 +123,7 @@ def init_gru(key: jax.Array, dim: int) -> Dict[str, jnp.ndarray]:
     (reset, update, candidate — the GRU4Rec cell; no counterpart in the
     reference, whose towers are LSTM and EWMA). Same conventions as
     :func:`init_lstm`: per-gate Glorot blocks fused to ``[dim, 3*dim]`` for
-    one MXU matmul, a single x-side bias."""
+    one matrix product, a single x-side bias."""
     k_x, k_h = jax.random.split(key)
     w_x = jnp.concatenate(
         [_glorot(k, (dim, dim)) for k in jax.random.split(k_x, 3)], axis=1
@@ -190,9 +192,10 @@ def init_attention(
     """Parameters for the causal self-attention tower.
 
     No counterpart in the reference (its towers are LSTM and EWMA) — this is
-    a deliberate TPU-first extension: every op in the tower is a large batched
-    matmul (QKV/output projections, attention scores, FFN), which is exactly
-    the shape the MXU wants, where the LSTM serializes a length-T scan.
+    a deliberate extension: every op in the tower is a large batched
+    matrix product (QKV/output projections, attention scores, FFN), the
+    shape accelerators run fastest, where the LSTM serializes a length-T
+    scan.
 
     Layout: learned positional table ``[max_len, D]`` plus per-layer pre-LN
     blocks ``{ln1, w_qkv [D, 3D], w_o [D, D], ln2, w_f1/b_f1, w_f2/b_f2}``
@@ -372,8 +375,7 @@ def ewma_apply(
 
     # Two-level BLOCKED affine scan instead of lax.associative_scan: the
     # tree scan slices the scanned axis at every level, and those strided
-    # slices cost ~18 us each on v5e (the scan was 4x the rest of the
-    # step). Here every operation is an elementwise fused multiply-add on a
+    # slices each cost a copy. Here every operation is an elementwise fused multiply-add on a
     # contiguous reshape: an unrolled inner scan within blocks of K
     # timesteps, a short serial compose over block totals, one broadcast
     # combine. Because the affine map at every window start is (0, x_t),

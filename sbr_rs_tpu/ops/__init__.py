@@ -1,1 +1,2 @@
-"""TPU compute ops: losses, sparse-aware optimizers, sampling, scoring."""
+"""Compute ops: losses, sparse-aware optimizers, sampling, scoring, and
+the LSTM recurrence kernel."""

@@ -6,18 +6,18 @@ row-gradients flowing into the shared embedding tables
 only rows touched by a step are updated, and the L2 penalty is applied to
 touched rows only.
 
-A TPU-native port of that semantic must avoid dense full-table updates —
-on a 10M-row table a dense Adagrad step would move ~GBs of HBM per step for
-a handful of touched rows. Instead each step:
+A batched port of that semantic must avoid dense full-table updates —
+on a 10M-row table a dense Adagrad step would move GBs of device memory
+per step for a handful of touched rows. Instead each step:
 
 1. collects the flat row indices touched by the batch (inputs, positives,
    negative candidates) together with an occurrence-validity mask,
 2. deduplicates them with a sort + segment-sum (static shapes, fully
-   parallel on TPU),
+   parallel),
 3. gathers optimizer state for the unique rows, computes the update, and
    scatters parameters/state back with ``mode='drop'`` for padding.
 
-HBM traffic is therefore proportional to *touched rows*, not table size.
+Memory traffic is therefore proportional to *touched rows*, not table size.
 Dense (small) parameters — LSTM cell weights, the EWMA ``alpha`` — use the
 ordinary dense update, which matches the reference where those parameters
 participate in every step's graph.
@@ -94,8 +94,8 @@ def segment_sum_grads(row_grads: jnp.ndarray, dd: DedupedRows) -> jnp.ndarray:
 def _blocked_cumsum(x: jnp.ndarray, block: int = 128) -> jnp.ndarray:
     """Inclusive cumsum along axis 0 with two-level blocking.
 
-    XLA lowers a plain cumsum along the major axis to a SERIAL per-element
-    loop on TPU (~7 ns/element — 250 us for 33k rows). Splitting into
+    XLA may lower a plain cumsum along the major axis to a SERIAL
+    per-element loop. Splitting into
     ``block``-sized chunks scans ``block`` elements serially inside each
     chunk (vectorized across chunks) plus one short scan over chunk totals:
     serial length drops from N to ``block + N/block``.
@@ -138,9 +138,8 @@ def dedupe_and_sum(
     """Fused :func:`dedupe_rows` + :func:`segment_sum_grads` + per-row bias
     validity, built from CUMULATIVE scans instead of segment reductions.
 
-    ``segment_sum``/``segment_max`` lower to serial scatters on TPU
-    (~7-9 ns per element — ~1.9 ms/step of the 10M-item profile); over
-    SORTED occurrences the same results come from a cumsum, a cummax, and
+    ``segment_sum``/``segment_max`` lower to scatters; over SORTED
+    occurrences the same results come from a cumsum, a cummax, and
     one sorted gather, all parallel ops. Each unique row's slot is its
     LAST occurrence position in the sorted order (occurrence space, not
     compacted segment space): ``summed[p] = cum[p] - cum[start_of_run - 1]``
@@ -341,7 +340,7 @@ def sparse_update(
     # every non-run-end position (e.g. [N, 2, N, 5]), so row_ids are
     # neither sorted nor unique — asserting the hints is implementation-
     # defined in XLA and steers the SPMD partitioner's gather strategy on
-    # sharded tables (ADVICE r2, medium).
+    # sharded tables.
     w_rows = jnp.take(table2, dd.row_ids, axis=0, mode="clip").astype(jnp.float32)
     if bias_valid is None:
         mcol = vcol

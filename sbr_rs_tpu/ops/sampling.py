@@ -37,8 +37,8 @@ def warp_select_onehot(
     index-vs-iota comparison: the first violator is "violates AND no prior
     violations" (an exclusive cumsum along K), falling back to the last
     draw when nothing violates. Everything is elementwise/cumsum — it fuses
-    into the surrounding VPU work, where the argmax+compare formulation
-    cost ~25 us/step at B=256 on v5e in reduction ops and layout copies.
+    into the surrounding elementwise work, where the argmax+compare
+    formulation costs reduction ops and layout copies.
     """
     k = cand_scores.shape[-1]
     viol = (1.0 - pos_scores[..., None] + cand_scores) > 0.0

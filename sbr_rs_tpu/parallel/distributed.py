@@ -1,14 +1,14 @@
 """Multi-host initialization and pod-slice mesh construction.
 
 The reference's only "distribution" is rayon threads over shared memory
-(``src/models/sequence_model.rs:100-102``); the TPU-native framework scales
-across hosts with ``jax.distributed`` + a global device mesh instead
-(SURVEY.md §5.8):
+(``src/models/sequence_model.rs:100-102``); this framework scales across
+hosts with ``jax.distributed`` + a global device mesh instead (SURVEY.md
+§5.8):
 
-* ``data`` axis — batch parallelism, laid out so that it spans hosts (DCN)
-  last: gradient ``psum`` rides ICI within a slice first.
-* ``model`` axis — item-table row sharding, kept *within* a slice so
-  embedding gathers/scatters ride ICI, never DCN.
+* ``data`` axis — batch parallelism, laid out so that it spans hosts last:
+  the gradient ``psum`` runs over the fast intra-host links first.
+* ``model`` axis — item-table row sharding, kept *within* a host so
+  embedding gathers/scatters stay on the intra-host links (NVLink).
 
 Single-host usage never needs this module; ``make_mesh()`` over local
 devices is enough. Multi-host jobs call :func:`initialize` once per process
@@ -34,8 +34,8 @@ def initialize(
 ) -> None:
     """Initialize JAX multi-host runtime (no-op when single-process).
 
-    Arguments default to the standard env vars / TPU metadata autodetection
-    of ``jax.distributed.initialize``. Failures surface immediately — the
+    Arguments default to the standard env vars / cluster autodetection of
+    ``jax.distributed.initialize``. Failures surface immediately — the
     reference has no failure detection (SURVEY.md §5.3); here a bad
     coordinator or mismatched world size raises at startup rather than
     hanging in the first collective.
@@ -57,8 +57,8 @@ def initialize(
 
 def global_mesh(model: int = 1) -> jax.sharding.Mesh:
     """A ``(data, model)`` mesh over ALL devices (across hosts), with the
-    ``model`` axis packed into the innermost (fastest, intra-slice) device
-    dimension so table gathers ride ICI."""
+    ``model`` axis packed into the innermost (fastest, intra-host) device
+    dimension so table gathers stay on the intra-host links."""
     devices = np.asarray(jax.devices())
     n = len(devices)
     if n % model:

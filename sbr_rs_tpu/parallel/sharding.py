@@ -1,6 +1,6 @@
 """Parameter and batch sharding rules.
 
-Rule set (the TPU-native replacement for the reference's shared-memory
+Rule set (the device-mesh replacement for the reference's shared-memory
 ``HogwildParameter`` storage, ``src/models/lstm.rs:175-181``):
 
 * ``item_table`` (the fused embedding+bias table, and its optimizer-state

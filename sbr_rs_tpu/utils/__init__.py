@@ -1,5 +1,5 @@
-"""Utilities: checkpointing, metrics/logging, profiling."""
+"""Utilities: checkpointing, metrics/logging, profiling, compile cache."""
 
-from . import checkpoint, metrics
+from . import checkpoint, compile_cache, metrics
 
-__all__ = ["checkpoint", "metrics"]
+__all__ = ["checkpoint", "compile_cache", "metrics"]

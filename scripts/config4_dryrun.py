@@ -1,16 +1,16 @@
 """BASELINE config[4] structural dryrun: a 100M-item catalog, row-sharded.
 
 Config[4] asks for "LSTM embedding_dim=256, 100M-item synthetic catalog,
-WARP with full sharded-catalog negative scoring across N>=2 hosts". Real
-multi-host TPU hardware is not available here; this runs the SAME program
-shape at full catalog scale on the virtual 8-device CPU mesh of one host:
+WARP with full sharded-catalog negative scoring across N>=2 hosts". This
+runs the SAME program shape at full catalog scale on the virtual 8-device
+CPU mesh of one host (``python chip_smoke.py --cards 4`` runs the 100M-item
+row-sharded path on four GPUs):
 
 * 100,000,000-item fused [N, 32] f32 table (+ f32 Adagrad accumulator)
   row-sharded over ``model=8`` — ~26 GB of parameter+state, materialized
   and updated THROUGH the sharded program (the CPU backend upcasts bf16
   to f32 internally, so bf16 at this scale OOMs a 125 GB host; dim 256
-  at 100M rows belongs on a real pod slice — the dim-width story at
-  127/256 is covered on the real chip by benches/large_scale.py);
+  at 100M rows belongs on several cards);
 * one full WARP fit step: on-device negative sampling over the 100M id
   space, gather -> LSTM -> WARP select -> masked loss -> sort/dedupe ->
   sparse Adagrad scatter, all under the mesh.
@@ -94,8 +94,8 @@ def main() -> None:
         "init_s": round(init_s, 1),
         "fit_s": round(fit_s, 1),
         "note": (
-            "Virtual 8-device CPU mesh on one host (no multi-host TPU "
-            "hardware available); program shape and scale are config[4]'s, "
+            "Virtual 8-device CPU mesh on one host; program shape and "
+            "scale are config[4]'s, "
             "cross-process execution proven by tests/test_multiprocess.py."
         ),
     }

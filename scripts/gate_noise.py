@@ -1,11 +1,10 @@
 """Measure the extension gates' noise: >=3 runs per platform per seed.
 
-VERDICT r4 item 5: the GRU/attention extension bars rested on ONE
-measurement per platform per seed. This driver re-runs each gate config
-N times per seed on the CURRENT backend and reports per-seed values and
-run-to-run spread; run it once on CPU and once on the TPU, then set the
-floors with >= 2x the observed cross-platform drift of margin (the policy
-the attention gate adopted after the round-3 advisor).
+The GRU/attention extension bars rested on ONE measurement per platform
+per seed. This script re-runs each gate config N times per seed on the
+CURRENT backend and reports per-seed values and run-to-run spread; run it
+once on CPU and once on the accelerator, then set the floors with >= 2x
+the observed cross-platform drift of margin.
 
 Run-to-run spread on one platform is expected ~0 (the whole fit is one
 deterministic compiled program per seed); the row demonstrating that is

@@ -3,8 +3,8 @@ processes and print the per-epoch losses as one JSON line.
 
 Used by tests/test_multiprocess.py to assert that REAL 2-process training
 (gloo CPU collectives, 4 virtual devices per process -> one 8-device global
-mesh) reproduces the single-process 8-device trajectory exactly, and by
-scripts/scaling_bench.py. The reference's only concurrency test is a
+mesh) reproduces the single-process 8-device trajectory exactly. The
+reference's only concurrency test is a
 2-thread fit (``src/models/lstm.rs:474-496``); this is its multi-host
 equivalent.
 

@@ -1,10 +1,9 @@
-"""A/B the serving subgroup refinement on the real chip.
+"""A/B the serving subgroup refinement on the card.
 
-Phase 2 of the streamed exact top-k is random-row gather-latency bound
-(~8 ns/row at 10M items — ARCHITECTURE.md "Remaining composition"); the
-subgroup refinement (models/base.py, round 4+) keeps the phase-1 merge at
-group width 128 but picks the final kk candidate units at SUBGROUP width,
-cutting phase-2 rows by group/sub. This script measures recommend_batch
+Phase 2 of the streamed exact top-k gathers random rows; the subgroup
+refinement (models/base.py) keeps the phase-1 merge at group width 128
+but picks the final kk candidate units at SUBGROUP width, cutting
+phase-2 rows by group/sub. This script measures recommend_batch
 wall at the serving-bench shape for sub in {128 (single-level baseline),
 64, 32, 16} and verifies the returned id lists against the baseline.
 

@@ -1,6 +1,6 @@
 """Causal self-attention tower + model tests.
 
-The attention model is a TPU-first extension (no reference counterpart);
+The attention model is an extension (no reference counterpart);
 these tests pin the contracts it must share with the recurrent towers:
 causality (state at t sees only items <= t), packed-window equivalence
 (block-diagonal masking + position restarts == separate rows), and the

@@ -1,6 +1,7 @@
 """MRR evaluation tests: exact semantics + batched/generic agreement."""
 
 import numpy as np
+import pytest
 
 import sbr_rs_tpu as sbr
 from sbr_rs_tpu import data as D
@@ -61,10 +62,38 @@ def _toy(num_users=40, num_items=30, seq_len=10, seed=0):
     return D.Interactions.from_arrays(users, items, ts, num_users, num_items)
 
 
-def test_batched_matches_generic():
+def _seen_heavy(num_users=40, num_items=5000):
+    """Random histories where every fifth held-out item is already in the
+    prefix and every third prefix repeats an item."""
+    rng = np.random.default_rng(0)
+    users, items, ts = [], [], []
+    for u in range(num_users):
+        h = rng.integers(0, num_items, int(rng.integers(3, 10))).tolist()
+        if u % 5 == 0:
+            h[-1] = h[0]  # held-out item in the prefix
+        if u % 3 == 0 and len(h) > 2:
+            h[1] = h[0]  # duplicate seen item
+        users += [u] * len(h)
+        items += h
+        ts += list(range(len(h)))
+    return D.Interactions.from_arrays(
+        np.asarray(users), np.asarray(items), np.asarray(ts), num_users, num_items
+    )
+
+
+@pytest.mark.parametrize(
+    "make,item_chunk",
+    [
+        (_toy, None),
+        # streamed: 3 chunks of 2048 with a clamped tail, duplicate seen
+        # items and held-out items that were already seen
+        (_seen_heavy, 2048),
+    ],
+)
+def test_batched_matches_generic(monkeypatch, make, item_chunk):
     """The chunked/batched fast path must agree with the reference-shaped
     per-user loop on a real fitted model."""
-    inter = _toy().to_compressed()
+    inter = make().to_compressed()
     model = (
         ewma.Hyperparameters(inter.num_items, 8)
         .num_epochs(1)
@@ -72,6 +101,8 @@ def test_batched_matches_generic():
         .build()
     )
     model.fit(inter)
+    if item_chunk is not None:
+        monkeypatch.setattr(evaluation, "_ITEM_CHUNK", item_chunk)
     fast = evaluation._ranks_batched(model, inter)
     slow = evaluation._ranks_generic(model, inter)
     # Rank-level agreement is stricter than the old MRR-level check; a
@@ -95,41 +126,6 @@ def test_batched_chunking_invariance(monkeypatch):
     monkeypatch.setattr(evaluation, "_USER_BATCH", 13)
     chunked = evaluation._ranks_batched(model, inter)
     np.testing.assert_array_equal(full, chunked)
-
-
-def test_batched_pallas_streamed_matches_generic(monkeypatch):
-    """The fused-kernel streamed counter (score_count_ge + out-of-stream
-    seen correction) must agree rank-for-rank with the reference-shaped
-    per-user loop, including duplicate seen items (the correction must
-    subtract each distinct id once) and held-out items that were already
-    seen (target = mask value; counts must be the full catalog)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    num_users, num_items = 40, 5000
-    rng = np.random.default_rng(0)
-    users, items, ts = [], [], []
-    for u in range(num_users):
-        h = rng.integers(0, num_items, int(rng.integers(3, 10))).tolist()
-        if u % 5 == 0:
-            h[-1] = h[0]  # held-out item in the prefix
-        if u % 3 == 0 and len(h) > 2:
-            h[1] = h[0]  # duplicate seen item
-        users += [u] * len(h)
-        items += h
-        ts += list(range(len(h)))
-    inter = D.Interactions.from_arrays(
-        np.asarray(users), np.asarray(items), np.asarray(ts), num_users, num_items
-    ).to_compressed()
-    model = (
-        ewma.Hyperparameters(num_items, 8).num_epochs(1).from_seed(0).build()
-    )
-    model.fit(inter)
-    monkeypatch.setattr(evaluation, "_ITEM_CHUNK", 2048)  # 3 chunks, clamped tail
-    monkeypatch.setenv("SBR_PALLAS_EVAL", "1")
-    with pltpu.force_tpu_interpret_mode():
-        fast = evaluation._ranks_batched(model, inter)
-    slow = evaluation._ranks_generic(model, inter)
-    np.testing.assert_array_equal(fast, slow)
 
 
 def test_users_with_single_item_skipped():
@@ -173,7 +169,7 @@ def test_single_compile_across_partial_batches(monkeypatch):
     model.fit(inter)
 
     chunk = min(E._ITEM_CHUNK, num_items)
-    counter = E._make_catalog_counter(chunk, -(-num_items // chunk), num_items)
+    counter = E._make_catalog_counter(chunk, -(-num_items // chunk), None)
     before = counter._cache_size()
     mrr = E.mrr_score(model, inter)
     assert np.isfinite(mrr)

@@ -417,24 +417,33 @@ def test_recommend_batch_matches_single():
     for h, got in zip(histories, batch2):
         assert got == model.recommend(h, k=5, exclude_seen=False)
 
-def test_recommend_batch_chunked_matches_dense(monkeypatch):
-    """The streamed chunked top-k (catalog slabs + running merge) must equal
-    a dense full-catalog argsort, including the final chunk's overlap
-    handling (num_items NOT divisible by the chunk) and seen-item masking
-    across chunk boundaries (VERDICT r2 item 2)."""
+@pytest.mark.parametrize(
+    "num_items,chunk,seed,histories",
+    [
+        # 5 chunks of 8 with a 3-column overlap in the last
+        (37, 8, 5, [[1, 2, 3], [30, 35, 36], [], list(range(0, 37, 3))]),
+        # 3 chunks of 2048, the last one clip-padded past the catalog end
+        (5000, 2048, 11, [[1, 2, 3], [4090, 4999], [], list(range(0, 5000, 400))]),
+    ],
+)
+def test_recommend_batch_chunked_matches_dense(
+    monkeypatch, num_items, chunk, seed, histories
+):
+    """The streamed chunked top-k (catalog slabs + single-pass merge) must
+    equal a dense full-catalog argsort, including the final chunk's
+    padding (num_items NOT divisible by the chunk) and seen-item masking
+    across chunk boundaries."""
     from sbr_rs_tpu.models.base import ImplicitSequenceModel
 
-    num_items = 37  # 5 chunks of 8 with a 3-column overlap in the last
-    inter = _toy_interactions(num_users=20, num_items=num_items).to_compressed()
     model = (
         lstm.Hyperparameters(num_items, 8).embedding_dim(16).num_epochs(2)
-        .batch_size(16).from_seed(5).build()
+        .batch_size(16).from_seed(seed).build()
     )
-    model.fit(inter)
-    monkeypatch.setattr(ImplicitSequenceModel, "_SERVE_ITEM_CHUNK", 8)
+    if num_items < 100:  # the large catalogs score their random init
+        model.fit(_toy_interactions(num_users=20, num_items=num_items).to_compressed())
+    monkeypatch.setattr(ImplicitSequenceModel, "_SERVE_ITEM_CHUNK", chunk)
     ImplicitSequenceModel._TOPK_FN_CACHE.clear()  # drop dense-traced programs
     try:
-        histories = [[1, 2, 3], [30, 35, 36], [], list(range(0, 37, 3))]
         got = model.recommend_batch(histories, k=6)
         for h, g in zip(histories, got):
             rep = model.user_representation(h)
@@ -447,40 +456,6 @@ def test_recommend_batch_chunked_matches_dense(monkeypatch):
             assert len(set(g)) == 6  # overlap columns must not duplicate items
     finally:
         ImplicitSequenceModel._TOPK_FN_CACHE.clear()
-
-def test_recommend_batch_pallas_streamed_matches_dense(monkeypatch):
-    """The FUSED-KERNEL streamed top-k (score+group-max in VMEM,
-    ops/pallas_topk.py) must equal the dense full-catalog argsort, like the
-    XLA streamed path it replaces on TPU — run here in interpret mode with
-    a 2048-row chunk (the kernel's minimum row block)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from sbr_rs_tpu.models.base import ImplicitSequenceModel
-
-    num_items = 5000  # 3 chunks of 2048 with a clamped final chunk
-    model = (
-        lstm.Hyperparameters(num_items, 8).embedding_dim(16).num_epochs(1)
-        .batch_size(16).from_seed(11).build()
-    )
-    monkeypatch.setattr(ImplicitSequenceModel, "_SERVE_ITEM_CHUNK", 2048)
-    monkeypatch.setenv("SBR_PALLAS_TOPK", "1")
-    ImplicitSequenceModel._TOPK_FN_CACHE.clear()
-    try:
-        histories = [[1, 2, 3], [4090, 4999], [], list(range(0, 5000, 400))]
-        with pltpu.force_tpu_interpret_mode():
-            got = model.recommend_batch(histories, k=6)
-        for h, g in zip(histories, got):
-            rep = model.user_representation(h)
-            scores = np.array(model.predict(rep))
-            if h:
-                scores[np.asarray(h)] = -np.inf
-            want = list(np.argsort(-scores, kind="stable")[:6])
-            assert g == want, (h, g, want)
-            assert not set(g) & set(h)
-            assert len(set(g)) == 6
-    finally:
-        ImplicitSequenceModel._TOPK_FN_CACHE.clear()
-
 
 def test_recommend_batch_return_scores():
     """return_scores must hand back the same dot(user, emb) + bias values
@@ -585,61 +560,33 @@ def test_streamed_topk_subgroup_refinement(monkeypatch):
             ImplicitSequenceModel._TOPK_FN_CACHE.clear()
 
 
-def test_recommend_batch_running_merge_branch(monkeypatch):
+@pytest.mark.parametrize(
+    "num_items,chunk,seed,histories",
+    [
+        (37, 8, 5, [[1, 2, 3], [30, 35, 36], [], list(range(0, 37, 3))]),
+        # a chunk that is no power of two: every chunk is a ragged
+        # mid-catalog slab, the last one past the catalog end
+        (7000, 3000, 3, [[1, 2, 3], [6990, 6999], []]),
+    ],
+)
+def test_recommend_batch_running_merge_branch(
+    monkeypatch, num_items, chunk, seed, histories
+):
     """The running per-chunk merge (taken when the all-groups maxima buffer
     exceeds _MERGE_BUFFER_BYTES) must equal the dense argsort too."""
     from sbr_rs_tpu.models.base import ImplicitSequenceModel
 
-    num_items = 37
-    inter = _toy_interactions(num_users=20, num_items=num_items).to_compressed()
     model = (
         lstm.Hyperparameters(num_items, 8).embedding_dim(16).num_epochs(2)
-        .batch_size(16).from_seed(5).build()
+        .batch_size(16).from_seed(seed).build()
     )
-    model.fit(inter)
-    monkeypatch.setattr(ImplicitSequenceModel, "_SERVE_ITEM_CHUNK", 8)
+    if num_items < 100:  # the large catalogs score their random init
+        model.fit(_toy_interactions(num_users=20, num_items=num_items).to_compressed())
+    monkeypatch.setattr(ImplicitSequenceModel, "_SERVE_ITEM_CHUNK", chunk)
     monkeypatch.setattr(ImplicitSequenceModel, "_MERGE_BUFFER_BYTES", 0)
     ImplicitSequenceModel._TOPK_FN_CACHE.clear()
     try:
-        histories = [[1, 2, 3], [30, 35, 36], [], list(range(0, 37, 3))]
         got = model.recommend_batch(histories, k=6)
-        for h, g in zip(histories, got):
-            rep = model.user_representation(h)
-            scores = np.array(model.predict(rep))
-            if h:
-                scores[np.asarray(h)] = -np.inf
-            want = list(np.argsort(-scores, kind="stable")[:6])
-            assert g == want, (h, g, want)
-    finally:
-        ImplicitSequenceModel._TOPK_FN_CACHE.clear()
-
-
-def test_recommend_batch_ragged_chunk_pallas_running_merge(monkeypatch):
-    """A serve chunk that is NOT a multiple of the kernel row block on the
-    RUNNING-MERGE (mid-catalog chunked) path: Pallas pads the ragged final
-    block with UNDEFINED rows whose global ids are still < n — the
-    in-kernel local < c bound must mask them and the caller slices the pad
-    groups off, so the kernel path still equals the dense argsort
-    (advisor r4's failure mode, fixed at the root)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from sbr_rs_tpu.models.base import ImplicitSequenceModel
-
-    num_items = 7000
-    model = (
-        lstm.Hyperparameters(num_items, 8).embedding_dim(16).num_epochs(1)
-        .batch_size(16).from_seed(3).build()
-    )
-    # 3000 is not a multiple of the 2048 row block → every chunk call is
-    # a ragged mid-catalog call.
-    monkeypatch.setattr(ImplicitSequenceModel, "_SERVE_ITEM_CHUNK", 3000)
-    monkeypatch.setattr(ImplicitSequenceModel, "_MERGE_BUFFER_BYTES", 0)
-    monkeypatch.setenv("SBR_PALLAS_TOPK", "1")
-    ImplicitSequenceModel._TOPK_FN_CACHE.clear()
-    try:
-        histories = [[1, 2, 3], [6990, 6999], []]
-        with pltpu.force_tpu_interpret_mode():
-            got = model.recommend_batch(histories, k=6)
         for h, g in zip(histories, got):
             rep = model.user_representation(h)
             scores = np.array(model.predict(rep))

@@ -120,9 +120,11 @@ def test_packed_fit_runs_and_learns():
 
 
 def test_pallas_packed_matches_scan():
-    from jax.experimental.pallas import tpu as pltpu
+    import functools
 
-    from sbr_rs_tpu.ops.pallas_lstm import lstm_apply_pallas
+    from sbr_rs_tpu.ops import pallas_lstm
+
+    lstm_apply_pallas = functools.partial(pallas_lstm.lstm_apply_pallas, interpret=True)
 
     d = 16
     params = init_lstm(jax.random.PRNGKey(0), d, False)
@@ -133,8 +135,7 @@ def test_pallas_packed_matches_scan():
     starts[2, 7] = 1.0
     starts = jnp.asarray(starts)
     want = lstm_apply(params, x, coupled=False, starts=starts)
-    with pltpu.force_tpu_interpret_mode():
-        got = lstm_apply_pallas(params, x, coupled=False, starts=starts)
+    got = lstm_apply_pallas(params, x, coupled=False, starts=starts)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-6)
 
     def loss_scan(p):
@@ -144,8 +145,7 @@ def test_pallas_packed_matches_scan():
         return jnp.sum(lstm_apply_pallas(p, x, coupled=False, starts=starts) ** 2)
 
     want_g = jax.grad(loss_scan)(params)
-    with pltpu.force_tpu_interpret_mode():
-        got_g = jax.grad(loss_pallas)(params)
+    got_g = jax.grad(loss_pallas)(params)
     for g, w in zip(jax.tree_util.tree_leaves(got_g), jax.tree_util.tree_leaves(want_g)):
         np.testing.assert_allclose(np.asarray(g), np.asarray(w), atol=1e-5)
 

@@ -4,6 +4,7 @@ import numpy as np
 import pytest
 
 import jax
+import jax.numpy as jnp
 
 from sbr_rs_tpu import data as D
 from sbr_rs_tpu import evaluation
@@ -125,25 +126,18 @@ def test_streamed_serving_over_sharded_table(monkeypatch):
 
 @pytest.mark.parametrize("data,model", [(4, 2), (2, 4)])
 def test_streamed_serving_sharded_kernel(monkeypatch, data, model):
-    """The fused score+group-max kernel COMPOSED with the row-sharded
-    table via jax.shard_map (VERDICT r4 item 1): each shard streams its
-    own slab and merges its own groups; only [U, w1] winners cross
-    shards. Must equal the dense argsort and the unsharded-model lists,
-    at model-axis degree 2 AND 4 (deeper cross-shard merges, 10-row
-    slabs). SBR_PALLAS_INTERPRET=1 runs the kernels in interpret mode
-    (the force_tpu_interpret_mode context deadlocks inside shard_map on
-    the multi-device CPU backend)."""
+    """The streamed exact top-k over a row-sharded table, which XLA
+    partitions on its own: must equal the dense argsort of the unsharded
+    model at model-axis degree 2 AND 4 (20- and 10-row slabs, chunks of 8
+    that straddle slab boundaries)."""
     from sbr_rs_tpu.models.base import ImplicitSequenceModel
 
-    num_items = 40  # 20- or 10-row slabs, heavily ragged vs the
-    # 2048 kernel row block: exercises the pad-group handling everywhere.
+    num_items = 40
     single = _hp(lstm.Hyperparameters, num_items).build()
     mesh = make_mesh(data=data, model=model)
     sharded = _hp(lstm.Hyperparameters, num_items, mesh).build()
 
     monkeypatch.setattr(ImplicitSequenceModel, "_SERVE_ITEM_CHUNK", 8)
-    monkeypatch.setenv("SBR_PALLAS_TOPK", "1")
-    monkeypatch.setenv("SBR_PALLAS_INTERPRET", "1")
     ImplicitSequenceModel._TOPK_FN_CACHE.clear()
     try:
         histories = [[1, 2, 3], [30, 39], [], list(range(0, 40, 7))]
@@ -160,21 +154,42 @@ def test_streamed_serving_sharded_kernel(monkeypatch, data, model):
 
 
 def test_streamed_eval_sharded_kernel(monkeypatch):
-    """The fused score+count kernel composed with the row-sharded table
-    via jax.shard_map + psum must reproduce the XLA streamed counter's
-    MRR exactly (same probe/seen-correction semantics per shard)."""
+    """The streamed counter over a row-sharded table (chunks of 8 that
+    straddle the 20-row slabs) must reproduce the ranks of the same
+    parameters on one device rank for rank."""
     inter = _toy(num_items=40).to_compressed()
     mesh = make_mesh(data=4, model=2)
     sharded = _hp(lstm.Hyperparameters, inter.num_items, mesh).build()
     sharded.fit(inter)
+    single = _hp(lstm.Hyperparameters, inter.num_items).build()
+    single._params = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(np.asarray(a)), sharded._params
+    )
 
     monkeypatch.setattr(evaluation, "_ITEM_CHUNK", 8)
-    monkeypatch.setenv("SBR_PALLAS_INTERPRET", "1")
-    monkeypatch.setenv("SBR_PALLAS_EVAL", "1")
-    got = evaluation.mrr_score(sharded, inter)
-    monkeypatch.setenv("SBR_PALLAS_EVAL", "0")
-    want = evaluation.mrr_score(sharded, inter)
-    assert got == want, (got, want)
+    got = evaluation._ranks_batched(sharded, inter)
+    want = evaluation._ranks_batched(single, inter)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_streamed_eval_sharded_four_slabs(monkeypatch):
+    """The per-shard counter at model=4: 10-row slabs, each streamed in
+    chunks of 8 whose last one overlaps the one before, must give the
+    ranks of the same parameters on one device."""
+    inter = _toy(num_items=40).to_compressed()
+    mesh = make_mesh(data=2, model=4)
+    sharded = _hp(lstm.Hyperparameters, inter.num_items, mesh).build()
+    sharded.fit(inter)
+    single = _hp(lstm.Hyperparameters, inter.num_items).build()
+    single._params = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(np.asarray(a)), sharded._params
+    )
+
+    monkeypatch.setattr(evaluation, "_ITEM_CHUNK", 8)
+    got = evaluation._ranks_batched(sharded, inter)
+    want = evaluation._ranks_batched(single, inter)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, evaluation._ranks_generic(single, inter))
 
 
 def test_clone_preserves_mesh():
@@ -214,48 +229,65 @@ def test_entry_compiles():
     assert np.all(np.isfinite(np.asarray(out)))
 
 
-def test_pallas_lstm_composes_with_mesh():
-    """The fused Pallas LSTM wrapped in jax.shard_map over the data axis
-    must reproduce the scan tower's sharded fit exactly (VERDICT r1 item 4:
-    previously the kernel silently degraded to lax.scan on meshes)."""
-    from jax.experimental.pallas import tpu as pltpu
+def _gpu_backend(monkeypatch):
+    """Make the model see the GPU backend, where it picks the LSTM kernel
+    without a mesh; the kernel runs in the Pallas interpreter."""
+    import functools
 
+    from sbr_rs_tpu.ops import pallas_lstm
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(
+        pallas_lstm, "lstm_apply_pallas",
+        functools.partial(pallas_lstm.lstm_apply_pallas, interpret=True),
+    )
+
+
+def test_pallas_lstm_composes_with_mesh(monkeypatch):
+    """On a mesh the LSTM model trains and serves with the ``lax.scan``
+    tower even on the backend where one device takes the kernel: one
+    forward path per model. Its sharded fit must equal the sharded fit on
+    the CPU backend."""
     inter = _toy().to_compressed()
     mesh = make_mesh(data=4, model=2)
-
-    scan_model = _hp(lstm.Hyperparameters, inter.num_items, mesh).use_pallas(False).build()
+    scan_model = _hp(lstm.Hyperparameters, inter.num_items, mesh).build()
     loss_scan = scan_model.fit(inter)
 
-    pallas_hp = _hp(lstm.Hyperparameters, inter.num_items, mesh).use_pallas(True)
-    pallas_model = pallas_hp.build()
-    assert not pallas_model._pallas_enabled()  # serving path stays on scan
-    with pltpu.force_tpu_interpret_mode():
-        loss_pallas = pallas_model.fit(inter)
+    _gpu_backend(monkeypatch)
+    assert _hp(lstm.Hyperparameters, inter.num_items).build()._pallas_enabled()
+    gpu_model = _hp(lstm.Hyperparameters, inter.num_items, mesh).build()
+    assert not gpu_model._pallas_enabled()
+    loss_gpu = gpu_model.fit(inter)
 
-    np.testing.assert_allclose(loss_pallas, loss_scan, rtol=1e-4)
+    np.testing.assert_allclose(loss_gpu, loss_scan, rtol=1e-4)
     np.testing.assert_allclose(
-        np.asarray(pallas_model._params["tower"]["w_h"]),
+        np.asarray(gpu_model._params["tower"]["w_h"]),
         np.asarray(scan_model._params["tower"]["w_h"]),
         atol=1e-5,
     )
 
 
-def test_pallas_lstm_mesh_packed():
-    """Packed batches (starts resets) through the shard_map-wrapped kernel."""
-    from jax.experimental.pallas import tpu as pltpu
-
+def test_pallas_lstm_mesh_packed(monkeypatch):
+    """Packed batches (starts resets): the sharded scan-tower fit on a
+    backend where one device picks the kernel matches the single-device
+    kernel fit."""
+    _gpu_backend(monkeypatch)
     inter = _toy(seq_len=13).to_compressed()
+    single = _hp(lstm.Hyperparameters, inter.num_items).packed(True).build()
+    assert single._pallas_enabled()
+    loss_kernel = single.fit(inter)
+
     mesh = make_mesh(data=4, model=2)
+    sharded = _hp(lstm.Hyperparameters, inter.num_items, mesh).packed(True).build()
+    loss_scan = sharded.fit(inter)
 
-    scan_model = (
-        _hp(lstm.Hyperparameters, inter.num_items, mesh).packed(True).use_pallas(False).build()
-    )
-    loss_scan = scan_model.fit(inter)
+    np.testing.assert_allclose(loss_scan, loss_kernel, rtol=1e-4)
 
-    pallas_model = (
-        _hp(lstm.Hyperparameters, inter.num_items, mesh).packed(True).use_pallas(True).build()
-    )
-    with pltpu.force_tpu_interpret_mode():
-        loss_pallas = pallas_model.fit(inter)
 
-    np.testing.assert_allclose(loss_pallas, loss_scan, rtol=1e-4)
+@pytest.mark.parametrize("num_items", [41, 102])
+def test_indivisible_catalog_refused(num_items):
+    """JAX shards an array only into equal blocks: a catalog the model axis
+    does not divide is refused at build time with the reason."""
+    mesh = make_mesh(data=2, model=4)
+    with pytest.raises(ValueError, match="divisible by 4"):
+        _hp(lstm.Hyperparameters, num_items, mesh).build()

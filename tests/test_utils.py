@@ -1,5 +1,7 @@
 """Utilities: fit history/metrics, logging, distributed helpers, protocol."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -132,7 +134,7 @@ def test_checkpoint_same_shape_stale_config_detected(tmp_path):
     model2 = build(0.5)  # same shapes, different hyperparams
     model2.fit(_toy().to_compressed())
     model2.save(str(path))
-    # Crash-window simulation: new state.msgpack paired with the OLD config.
+    # Crash-window simulation: new state.npz paired with the OLD config.
     (path / "config.json").write_text(stale_config)
     with pytest.raises(ValueError, match="mismatch"):
         load_model(str(path))
@@ -190,3 +192,61 @@ def test_program_caches_are_lru_bounded():
         ImplicitSequenceModel._TOPK_FN_CACHE,
     ):
         assert isinstance(c, _LruCache)
+
+
+def test_import_and_checkpoint_without_flax(tmp_path):
+    """The package imports, saves and loads with flax unavailable (NumPy
+    archives only), and the loaded model resumes from the same state."""
+    import subprocess
+    import sys
+
+    code = f"""
+import sys
+sys.modules["flax"] = None  # any import of flax now fails
+import numpy as np
+import sbr_rs_tpu as sbr
+from sbr_rs_tpu.models import lstm
+inter = sbr.datasets.synthetic_interactions(16, 30, 8, rng=0).to_compressed()
+m = lstm.Hyperparameters(30, 8).embedding_dim(8).num_epochs(1).from_seed(0).build()
+m.fit(inter)
+m.save({str(tmp_path / "ckpt")!r})
+r = lstm.ImplicitLSTMModel.load({str(tmp_path / "ckpt")!r})
+assert np.array_equal(np.asarray(r._params["item_table"]), np.asarray(m._params["item_table"]))
+assert r.fit(inter) == m.fit(inter)
+print("ok")
+"""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env,
+        cwd=os.path.join(os.path.dirname(__file__), ".."), timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("env_dir", [None, "elsewhere"])
+def test_compile_cache_location(monkeypatch, tmp_path, env_dir):
+    """Without JAX_COMPILATION_CACHE_DIR the cache goes to a fixed
+    ``.jax_cache`` at the checkout root; with it, nothing is set here."""
+    from pathlib import Path
+
+    import jax
+
+    from sbr_rs_tpu.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    if env_dir is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    else:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / env_dir))
+    try:
+        got = compile_cache.enable_compile_cache()
+        if env_dir is None:
+            root = Path(sbr.__file__).resolve().parents[1]
+            assert got == str(root / ".jax_cache")
+            assert jax.config.jax_compilation_cache_dir == got
+        else:
+            assert got == str(tmp_path / env_dir)
+            assert jax.config.jax_compilation_cache_dir == before
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
